@@ -12,7 +12,7 @@ WHICH-items-get-interacted pattern is Zipf-sampled by construction, so
 raw popularity is a strong random-holdout baseline — the model-to-model
 comparison is the meaningful one.)
 
-Run: python examples/bpr_ranking.py     (add --cpu off-TPU)
+Run: python examples/bpr_ranking.py     (add --cpu without a GPU)
 """
 
 import os

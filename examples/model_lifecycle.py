@@ -10,7 +10,7 @@
 This is the flow the reference gets implicitly from retraining off its
 database (SURVEY.md C7); here every step is explicit and checkpointed.
 
-Run: python examples/model_lifecycle.py     (add --cpu off-TPU)
+Run: python examples/model_lifecycle.py     (add --cpu without a GPU)
 """
 
 import json

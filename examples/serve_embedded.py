@@ -1,7 +1,7 @@
 """Embed the serving facade in your own process: hot state updates, online
 ratings, cold-user fold-in — the library behind `python -m ycnr_tpu serve`.
 
-Run: python examples/serve_embedded.py           (add --cpu off-TPU)
+Run: python examples/serve_embedded.py           (add --cpu without a GPU)
 """
 
 import os

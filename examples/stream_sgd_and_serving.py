@@ -1,13 +1,13 @@
 """Round-2 features end to end: stream-SGD training + the concurrent TCP
 serving service with dynamic micro-batching.
 
-* trains SGD-MF with the scatter-free stream epoch (models/sgd_stream.py —
-  5.7-6.8x over the shuffled-batch path on TPU; docs/KERNELS.md), then
+* trains SGD-MF with the scatter-free stream epoch (models/sgd_stream.py),
+  then
 * serves the factors behind the thread-per-connection TCP server
   (serve/server.py) and fires a burst of concurrent clients at it,
   printing the latency histogram from the `stats` request.
 
-Run: python examples/stream_sgd_and_serving.py     (add --cpu off-TPU)
+Run: python examples/stream_sgd_and_serving.py     (add --cpu without a GPU)
 """
 
 import json

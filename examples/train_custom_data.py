@@ -1,6 +1,6 @@
 """Train on your own (user, item, rating) arrays through the library API.
 
-Run: python examples/train_custom_data.py        (add --cpu off-TPU)
+Run: python examples/train_custom_data.py        (add --cpu without a GPU)
 """
 
 import os

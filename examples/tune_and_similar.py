@@ -4,7 +4,7 @@ the whole lambda x seed grid trains inside ONE compiled device program
 queries, and precomputed caches — the `tune` / `recommend --similar` /
 `serve --precompute*` CLI surface as library calls.
 
-Run: python examples/tune_and_similar.py         (add --cpu off-TPU)
+Run: python examples/tune_and_similar.py         (add --cpu without a GPU)
 """
 
 import dataclasses

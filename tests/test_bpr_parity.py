@@ -86,7 +86,7 @@ def test_bpr_deterministic_and_learns():
 def test_bpr_emean_tracks_mean_quality():
     """The expected-multiplicity mode must land in the same quality band
     as realized-multiplicity "mean" (it exists purely to avoid mean's
-    on-device counting cost — docs/KERNELS.md BPR perf model)."""
+    on-device counting cost)."""
     n_users, n_items = 80, 60
     u, i = _implicit(n_users, n_items, nnz=2400, seed=11)
     data = prepare_bpr_data(u, i, 512, n_users, n_items)

@@ -45,7 +45,7 @@ from ycnr_tpu.parallel.mesh import make_mesh
 
 DT = jnp.float64
 
-# 25 cases (VERDICT r1: widen the sweep). Each case draws random shapes,
+# 25 cases. Each case draws random shapes,
 # density, rank, shard count, lambda AND a mode combination:
 #   algo:  als / ials (alpha drawn too)
 #   mesh:  gram_psum (user-sharded) / item_sharded (dual)

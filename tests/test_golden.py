@@ -81,7 +81,7 @@ def test_golden_bpr_ranking_quality():
 
 def _cfg_calibrated(algorithm):
     """Same shapes/seeds as _cfg but on the CALIBRATED generator (published
-    ML-20M rating histogram + Pareto degrees — VERDICT round 2 item 9).
+    ML-20M rating histogram + Pareto degrees).
     Note the quality class shifts toward real-data numbers: ALS plateaus
     near 0.82 RMSE (real ML-20M sits ~0.78-0.82) instead of the planted
     mode's easy 0.44 — the whole-star spikes and degree tail make the

@@ -183,7 +183,9 @@ def test_precompute_all_fills_cache():
     subsequent recommend() serves from cache (no scorer call), respects
     pending updates folded in by the pre-pass compact, and a state swap
     invalidates the lot."""
-    n_users, n_items = 40, 2000  # catalog large enough for the fused path
+    # the bulk pass runs the exact scorer; 2000 items is not a whole
+    # number of its 128-item segments, so the padded tail is exercised
+    n_users, n_items = 40, 2000
     u, i, r = synthetic_ratings(n_users, n_items, 800, true_rank=3, seed=4)
     state = init_state(n_users, n_items, 5, seed=0)
     rec = Recommender(state, u, i, train_r=r, compact_threshold=10**9)

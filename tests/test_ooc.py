@@ -4,7 +4,7 @@ The OOC path (ops/packed.py + models/ooc.py) must be the SAME math as the
 resident bucketed path — decoded wire blocks bitwise equal the resident
 BucketedCSR blocks, and a streamed epoch bitwise equals a resident epoch
 in float64 (they share bucket_solve_rows). SURVEY.md §5 long-context:
-this is the TPU-native analog of the reference's portioned DB streaming.
+this is the device analog of the reference's portioned DB streaming.
 """
 
 import numpy as np

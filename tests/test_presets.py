@@ -2,10 +2,10 @@
 
 Catches config drift: a preset whose fields stop matching the train loop /
 data layer breaks here, not on a user's first real run. The BASELINE configs
-themselves (real datasets / full scale) are exercised by bench.py and the
-TPU runs; here each preset's *wiring* runs one epoch on a small synthetic
-override (the netflix-sharded preset runs its real 8-shard mesh path on the
-fake CPU mesh from conftest).
+themselves (real datasets / full scale) are exercised by bench.py and
+chip_smoke.py on the GPU; here each preset's *wiring* runs one epoch on a
+small synthetic override (the netflix-sharded preset runs its real 4-shard
+mesh path on the fake CPU mesh from conftest).
 """
 
 import dataclasses

@@ -1,6 +1,7 @@
 """Masked top-N serving vs oracle (SURVEY.md C13, call stack 3.5)."""
 
 import numpy as np
+import pytest
 
 from ycnr_tpu.data.synthetic import synthetic_ratings
 from ycnr_tpu.eval.recommend import recommend_all, recommend_users
@@ -128,3 +129,30 @@ def test_user_with_all_items_rated():
     items, scores = recommend_users(state, u, i, np.array([0]), n=5)
     assert items.shape == (1, 5)
     assert np.all(scores <= -1e38)
+
+
+@pytest.mark.parametrize("n_items", [130, 300, 1000])
+def test_exact_scorer_matches_float64_at_unaligned_widths(n_items):
+    """The exact scorer's 128-item segments pad the catalog; at widths
+    that are not a multiple of 128 its float32 top-10 must still be the
+    float64 top-10 (scores within f32 rounding, rated items excluded)."""
+    import jax.numpy as jnp
+
+    n_users, k = 50, 16
+    u, i, r = synthetic_ratings(n_users, n_items, 20 * n_users, true_rank=3,
+                                seed=n_items)
+    rng = np.random.default_rng(n_items)
+    U = rng.normal(0, 1.0, (n_users, k))
+    V = rng.normal(0, 1.0, (n_items, k))
+    bu, bi = rng.normal(0, .1, n_users), rng.normal(0, .1, n_items)
+    state = state_from_numpy(U, V, bu, bi, mu=3.5, dtype=jnp.float32)
+    uids, items, scores = recommend_all(
+        state, build_blocked_csr(u, i, r, n_users, n_items, 8, 32), n=10)
+    U32, V32 = (x.astype(np.float32).astype(np.float64) for x in (U, V))
+    b32 = [x.astype(np.float32).astype(np.float64) for x in (bu, bi)]
+    for row, uid in enumerate(uids):
+        s = 3.5 + b32[0][uid] + b32[1] + V32 @ U32[uid]
+        s[i[u == uid]] = -np.inf
+        ref = np.sort(s)[::-1][:10]
+        np.testing.assert_allclose(s[items[row]], ref, rtol=0, atol=1e-4)
+        np.testing.assert_allclose(scores[row], ref, rtol=0, atol=1e-4)

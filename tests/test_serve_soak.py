@@ -1,4 +1,4 @@
-"""Sustained serving soak (VERDICT round 2 item 7).
+"""Sustained serving soak.
 
 Mixed request types (user / batch / cold / similar / predict / exclude /
 popular / stats) from many concurrent TCP clients against a live server in

@@ -71,7 +71,7 @@ def test_power_law_skews_popularity():
 
 def test_calibrated_rating_histogram_exact():
     """The calibrated mode's rating marginal matches the published ML-20M
-    histogram to largest-remainder rounding (VERDICT round 2 item 9)."""
+    histogram to largest-remainder rounding."""
     from ycnr_tpu.data.synthetic import (ML20M_RATING_HIST,
                                          synthetic_ratings_calibrated)
 

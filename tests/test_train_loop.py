@@ -110,7 +110,8 @@ def test_train_fused_epochs_matches_per_epoch(tmp_path):
 
 
 def test_warm_program_overlap(tmp_path, monkeypatch):
-    """The background program warm (first-epoch wall attack) must compile
+    """The background program warm (compile overlapped with the layout
+    pack) must compile
     on shapes that match the real layout bit for bit, and training results
     must be unchanged by it. Covers the plain and fused epoch paths."""
     import ycnr_tpu.train.loop as loop_mod

@@ -1,19 +1,15 @@
-"""ALS epoch attribution via full-epoch variants (docs/KERNELS.md).
+"""ALS epoch attribution via full-epoch variants.
 
 Measures where the ML-20M rank-64 epoch time goes by compiling FULL-epoch
 programs with one stage neutralized at a time (gather-only / no-solve /
-no-scatter / full) — same program structure as the real epoch, so none of
-them hits the remote AOT helper's size limit the way stage-isolated jits
-do. CRITICAL: the layouts must be passed as jit ARGUMENTS; closing them
-over the function inlines them as HLO constants and blows the helper's
-HTTP 413 limit (how round 1 concluded attribution was "blocked").
+no-scatter / full) — same program structure as the real epoch. The
+layouts are passed as jit ARGUMENTS; closing them over the function would
+inline them as HLO constants. The no_solve variant still scatters, so
+Grams = no_solve - gather_only - scatters; the four parts sum to full.
 
-Run on the TPU host (uses bench.py's cached ML-20M COO):
+Run on the GPU host (uses bench.py's cached ML-20M COO):
     python tools/attrib_als.py
-Measured 2026-08-18 (8 groups, bf16): full 0.254 s = gathers 0.161 (63%)
-+ solves 0.057 (22%) + Grams 0.027 (11%) + scatters 0.009 (4%) — note
-the no_solve variant still scatters, so Grams = no_solve - gather_only
-- scatters; the four parts sum to full exactly.
+Not yet measured on the GPU.
 """
 import os, sys, time
 import numpy as np
@@ -26,10 +22,14 @@ from ycnr_tpu.models.base import init_state
 from ycnr_tpu.ops.bucketed import build_bucketed
 from ycnr_tpu.models.bucketed_phase import device_bucketed
 from ycnr_tpu.ops.gram import guarded_batched_solve
-from ycnr_tpu.utils.profiling import device_sync
+from ycnr_tpu.utils.compile_cache import enable_compile_cache
+from ycnr_tpu.utils.device import require_gpu
 
-cache_dir = os.environ.get("YCNR_BENCH_CACHE",
-                           f"/tmp/ycnr_bench_cache.{os.getuid()}")
+require_gpu("tools/attrib_als.py")
+enable_compile_cache()
+import bench  # noqa: E402  (the repo root is on sys.path above)
+
+cache_dir = os.environ.get("YCNR_BENCH_CACHE", bench.BENCH_CACHE_DIR)
 import glob
 hits = sorted(glob.glob(os.path.join(
     cache_dir, "v1_coo_138493x26744x20000263_s0_*.npz")))
@@ -78,16 +78,15 @@ import json
 steady = {}
 for mode in ("full", "no_solve", "no_scatter", "gather_only"):
     st = init_state(NU, NI, R, seed=0)
-    t0 = time.time(); st = epoch(st, ul, il, mode); device_sync(st.U)
+    t0 = time.time(); st = jax.block_until_ready(epoch(st, ul, il, mode))
     first = time.time() - t0
     ts = []
     for _ in range(3):
-        t0 = time.time(); st = epoch(st, ul, il, mode); device_sync(st.U); ts.append(time.time() - t0)
+        t0 = time.time(); st = jax.block_until_ready(epoch(st, ul, il, mode)); ts.append(time.time() - t0)
     steady[mode] = float(np.median(ts))
     sys.stderr.write(f"{mode:12s} first={first:6.1f}s steady={steady[mode]:.4f}s\n")
 
-# disjoint split (docs/KERNELS.md "What's left on the table"): the no_solve
-# variant still scatters, so Grams = no_solve - gather_only - scatters
+# disjoint split: the no_solve variant still scatters, so Grams = no_solve - gather_only - scatters
 full = steady["full"]
 scatters = full - steady["no_scatter"]
 solves = full - steady["no_solve"]

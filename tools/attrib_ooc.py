@@ -4,7 +4,7 @@ Splits a streamed epoch into disjoint, separately-timed passes over the
 SAME cached wire (tools/bench_ooc.py builds it):
 
   puts     device_put every chunk, consume with a trivial jitted sum —
-           the true host->HBM transfer cost in epoch context (the
+           the true host->device transfer cost in epoch context (the
            single-array probe can overstate the rate: per-put latency
            and memmap paging don't show up there)
   decode   puts + decode_block(_rect) per block, reduced to a scalar —
@@ -48,10 +48,9 @@ def main():
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ.get("JAX_COMPILATION_CACHE_DIR",
-                                     f"/tmp/ycnr_jax_cache.{os.getuid()}"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from ycnr_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from ycnr_tpu.models.base import init_state
@@ -106,7 +105,7 @@ def main():
                 dv = tuple(jax.device_put(a) for a in ch)
                 s = consume(*dv)
                 acc = s if acc is None else acc + s
-        return float(jax.device_get(acc))
+        return jax.block_until_ready(acc)
 
     @partial(jax.jit, static_argnames=("R", "n_other"))
     def decode_chunk(lo, hi_pos, hi_val, rat, cnt, eid, R, n_other):
@@ -130,7 +129,7 @@ def main():
                 dv = tuple(jax.device_put(a) for a in ch)
                 s = decode_chunk(*dv, g.R, g.n_other)
                 acc = s if acc is None else acc + s
-        return float(jax.device_get(acc))
+        return jax.block_until_ready(acc)
 
     def pass_full(state):
         return als_epoch_ooc(state, ug, ig, 0.05, gather_bf16=True,
@@ -158,8 +157,7 @@ def main():
     times = []
     for rep in range(args.reps + 1):
         t0 = time.time()
-        state = pass_full(state)
-        float(jax.device_get(jnp.sum(state.U)))
+        state = jax.block_until_ready(pass_full(state))
         times.append(time.time() - t0)
         log(f"full rep {rep}: {times[-1]:.3f}s")
     res["full_s"] = round(min(times[1:]), 3)

@@ -11,9 +11,9 @@ script generates an ML-20M-format ratings.csv and measures:
   * load_movielens end-to-end (parse + densify id maps) — what `prepare`
     actually runs.
 
-Run:  python tools/bench_ingest.py [--rows 20000000] [--path /tmp/...]
+Run:  python tools/bench_ingest.py [--rows 20000000] [--path FILE.csv]
 The file is reused if it already exists (generation on this host is
-page-fault-bound; see docs/KERNELS.md "Host-side build notes").
+page-fault-bound).
 """
 
 import argparse
@@ -26,6 +26,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import bench  # noqa: E402
 from ycnr_tpu.data.movielens import _parse_python, load_movielens  # noqa: E402
 from ycnr_tpu.native import parse_ratings_native  # noqa: E402
 
@@ -57,7 +58,9 @@ def main():
     ap.add_argument("--py-rows", type=int, default=1_000_000,
                     help="rows for the Python-fallback slice")
     args = ap.parse_args()
-    path = args.path or f"/tmp/ycnr_ingest_bench_{args.rows}.csv"
+    path = args.path or os.path.join(bench.BENCH_CACHE_DIR,
+                                     f"ingest_bench_{args.rows}.csv")
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
 
     if not os.path.exists(path):
         dt = generate(path, args.rows)

@@ -1,17 +1,13 @@
 #!/usr/bin/env python
 """Per-row random-access primitive microbench, dtype-resolved.
 
-Round 2 established the ~9 ns/row per-op floor for f32 (docs/KERNELS.md
-"Stream-SGD") and that bf16 GATHERS are ~2.6x cheaper at width <= 64.
-This bench extends the table with the dtype axis for every primitive the
-BPR/SGD epochs issue — gather, scatter-add, segment_sum (sorted/unsorted)
-— at the exact row widths those epochs use (rank+2 fused columns), plus
-the int32 bits-word gather of the BPR collision mask. The numbers decide
-whether stream-BPR's bf16 restructuring can beat the measured 59 ns/triple
-(VERDICT round 2 item 2).
+Times, per dtype, every primitive the BPR/SGD epochs issue — gather,
+scatter-add, segment_sum (sorted/unsorted) — at the exact row widths
+those epochs use (rank+2 fused columns), plus the int32 bits-word gather
+of the BPR collision mask.
 
 Method: ITERS repetitions INSIDE one lax.scan (dispatch amortized), timed
-with a scalar-readback sync; each measurement reports ns per indexed row.
+to jax.block_until_ready; each measurement reports ns per indexed row.
 """
 
 import argparse
@@ -26,7 +22,7 @@ from jax import lax
 
 
 def sync(x):
-    return float(jax.device_get(jnp.sum(x.astype(jnp.float32))))
+    return jax.block_until_ready(x)
 
 
 def timed(fn, *args, iters=3):

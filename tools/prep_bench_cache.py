@@ -1,10 +1,9 @@
 """Host-side cache pre-build for bench.py (CPU-only process).
 
-Same motivation as tools/prep_ooc_cache.py: the TPU is an exclusive
-per-process lock, and bench.py's synthetic-data generation + layout
-packing are minutes of pure host work on this 1-vCPU host. Building the
+Same motivation as tools/prep_ooc_cache.py: bench.py's synthetic-data
+generation + layout packing are minutes of pure host work. Building the
 COO and bucketed-layout blobs here (identical cache tags) lets a later
-bench.py run start straight into TPU work.
+bench.py run start straight into device work.
 
     JAX_PLATFORMS=cpu python tools/prep_bench_cache.py --scale ml20m --rank 64 --rank 128
 """

@@ -1,11 +1,9 @@
 """Host-side cache pre-build for tools/bench_ooc.py (CPU-only process).
 
-The TPU is an exclusive per-process lock on this host, and bench_ooc's
-data generation + wire packing are pure host work that can take tens of
-minutes on the 1-vCPU bench host (docs/KERNELS.md "Host-side build
-notes"). Running them in a JAX_PLATFORMS=cpu process keeps the chip free
-for other measurements; bench_ooc then starts against warm caches and
-holds the TPU only for the epochs it actually times.
+bench_ooc's data generation + wire packing are pure host work that can
+take tens of minutes. Running them in a JAX_PLATFORMS=cpu process keeps
+the device free for other measurements; bench_ooc then starts against
+warm caches and holds the device only for the epochs it actually times.
 
 The wire build is bench_ooc.build_or_load_wire itself — shared code, so
 the cache tags (including the wire-format tag and the b1 portion spool)

@@ -1,20 +1,18 @@
 """BPR-vs-iALS ranking quality on the calibrated synthetic generator.
 
-Round-3 measured the "pairwise objective ~2x over iALS at top-10" claim
-on the default Zipf planted-factor generator, whose popularity profile
-decides WHICH pairs exist and can flatter pairwise objectives
-(BASELINE.md quality rows; VERDICT r3 weak-5/next-8). This tool re-runs
+The default Zipf planted-factor generator's popularity profile decides
+WHICH pairs exist and can flatter pairwise objectives. This tool runs
 the comparison on data/synthetic.synthetic_ratings_calibrated — the
 published-ML-20M-marginals generator (exact rating histogram via
 quantile mapping, Pareto user degrees with the >=20 floor) — holding
 everything else fixed: ONE dataset object (identical split) feeds both
-trainers, same rank/topn/eval sampling as the round-3 rows.
+trainers, same rank/topn/eval sampling.
 
 Reference analog: the reference's de-facto acceptance signal is held-out
 quality on real MovieLens (SURVEY.md §4); with no real data in this
 environment, calibrated marginals are the closest sanctioned stand-in.
 
-Usage (TPU, ~2 min at ML-20M scale after compile):
+Usage (on the GPU at ML-20M scale):
     python tools/quality_calibrated.py [--generator calibrated|planted]
         [--epochs 6] [--scale ml20m|smoke] [--out runs/quality]
 
@@ -37,7 +35,7 @@ from ycnr_tpu.data.dataset import load_dataset  # noqa: E402
 from ycnr_tpu.train.loop import train  # noqa: E402
 
 SCALES = {
-    # ML-20M shape — matches the round-3 quality rows (BASELINE.md)
+    # ML-20M shape
     "ml20m": dict(n_users=138_493, n_items=26_744, n_ratings=20_000_263),
     # tiny CPU smoke for CI
     "smoke": dict(n_users=700, n_items=300, n_ratings=30_000),

@@ -37,10 +37,10 @@ class DataConfig:
     split: str = "random"
     last_k: int = 1  # k for split="last-out"
     chunk_len: int = 32  # L: ratings per chunk in the blocked-CSR layout
-    # bucket-group cap for the single-chip bucketed layout: each group is
-    # one program segment, so fewer groups = smaller executable = faster
-    # first epoch (program upload), at some padding-fill cost. 16 is best
-    # steady-state; 8 roughly halves first-epoch wall (docs/KERNELS.md)
+    # bucket-group cap for the single-device bucketed layout: each group
+    # is one program segment, so fewer groups = smaller executable =
+    # faster compile, at some padding-fill cost (not yet re-measured on
+    # the GPU)
     max_groups: int = 16
     block_chunks: Optional[int] = None  # C_B: chunks per block (None = auto)
 
@@ -76,7 +76,7 @@ class SGDConfig:
     # "batched" = uniformly-shuffled batches (models/sgd.py, the oracle
     # semantics); "stream" = user-sorted pass-striped stream with
     # batch-order reshuffle (models/sgd_stream.py) — scatter-free access
-    # pattern, 5-7x faster on TPU; the default grad_mode "sum" maps to
+    # pattern; the default grad_mode "sum" maps to
     # "capped" there (min(multiplicity, cap) effective step — matches the
     # batched-sum trajectory without hot-entity divergence); "mean"
     # passes through unchanged
@@ -138,7 +138,7 @@ class MeshConfig:
     parallelism table P1-P4).
     """
 
-    n_shards: int = 1  # 1 = single chip, no mesh
+    n_shards: int = 1  # 1 = single device, no mesh
     # mesh axis name. Fixed: every shard_map spec / psum in parallel/ binds
     # the module constant AXIS='shard'; any other value would fail at the
     # first collective, so reject it at config time instead.
@@ -151,7 +151,7 @@ class MeshConfig:
                 "parallel/dual.py bind that axis name in every collective)")
     # V-step strategy when sharded (SURVEY.md M6):
     #   "gram_psum": ratings stay user-sharded; per-item Gram matrices are
-    #                psum'd over ICI (the BASELINE.json:5 prescribed collective)
+    #                psum'd over the mesh (the BASELINE.json:5 collective)
     #   "item_sharded": re-bucket by item across the mesh; no Gram psum
     vstep_mode: str = "gram_psum"
 
@@ -182,21 +182,19 @@ class RunConfig:
     # four trainers on one shared split with identical eval machinery.
     log_hit_rate: bool = False
     # >1 fuses that many epochs (plus their RMSE evals) into ONE device
-    # program (models/bucketed_phase.als_epochs_bucketed): saves the
-    # ~30 ms/dispatch host roundtrip — measured 0.2845 -> 0.2641 s/epoch
-    # wall at ML-20M (7%). Single-chip ALS/iALS only; checkpoints, early
-    # stopping, shm publishes, and the iALS hit-rate land at block
-    # boundaries. Prefer a value dividing `epochs` (a partial tail block
-    # compiles a second program — minutes of upload on a remote TPU).
+    # program (models/bucketed_phase.als_epochs_bucketed): one dispatch
+    # and host sync per block instead of two per epoch. Single-device
+    # ALS/iALS only; checkpoints, early stopping, shm publishes, and the
+    # iALS hit-rate land at block boundaries. Prefer a value dividing
+    # `epochs` (a partial tail block compiles a second program).
     fused_epochs: int = 1
     # out-of-core training (models/ooc.py): keep only the factors (and as
     # much of the compressed wire as fits) resident and stream the rest
-    # host->HBM through every epoch (ops/packed.py) — bounds trainable
+    # host->device through every epoch (ops/packed.py) — bounds trainable
     # nnz by host RAM/disk instead of device memory (the reference's
-    # portioned DB streaming, SURVEY.md L1->L5). Single-chip ALS/iALS
-    # only; streamed groups are wire-bandwidth-bound, HBM-pinned groups
-    # run at near-resident speed (docs/KERNELS.md "Out-of-core
-    # streaming").
+    # portioned DB streaming, SURVEY.md L1->L5). Single-device ALS/iALS
+    # only; streamed groups are bound by the host link, device-pinned
+    # groups run at near-resident speed.
     ooc: bool = False
     # OOC wire format: "packed" (minimal bytes — the default: both the
     # host wire and the HBM-pinned footprint are byte-bound) or "rect"
@@ -209,10 +207,6 @@ class RunConfig:
     # pins everything (fails on HBM exhaustion rather than falling back)
     ooc_residency: str = "auto"
     measure_serving: bool = False  # time top-N for all users after training
-    # serving scorer for measure_serving / offline top-N: exact | fused |
-    # fused32 (fused = Pallas kernel, ops/pallas_topn.py; falls back to
-    # exact when the catalog is too small for the two-level select)
-    scorer: str = "exact"
     # shm segment name to publish factors into after each checkpointed epoch
     # (serving processes attach via serve.ShmRecommender) — reference C6c
     publish_shm: Optional[str] = None
@@ -276,8 +270,9 @@ _PRESETS = {
         bpr=BPRConfig(rank=32, lam=0.01, lr=0.05, epochs=30,
                       batch_size=65_536),
     ),
-    # BASELINE.json:11 — "Sharded ALS + full top-N recommendation serving over
-    # 8-chip mesh (Netflix-scale synthetic)"
+    # BASELINE.json:11 — "Sharded ALS + full top-N recommendation serving
+    # over a mesh (Netflix-scale synthetic)"; 4 shards = the cards of one
+    # 4-GPU host, joined all to all
     "netflix-sharded": RunConfig(
         name="netflix-sharded",
         algorithm="als",
@@ -285,7 +280,7 @@ _PRESETS = {
                         n_ratings=100_480_507, true_rank=32, chunk_len=32),
         als=ALSConfig(rank=64, lam=0.05, epochs=5,
                       gather_dtype="bfloat16"),
-        mesh=MeshConfig(n_shards=8),
+        mesh=MeshConfig(n_shards=4),
         topn=10,
     ),
 }

@@ -1,7 +1,7 @@
 """Ratings store with portioned streaming (the reference's PostgreSQL role).
 
 SURVEY.md C7 / L1: the reference imports MovieLens into a Postgres ratings
-table and streams rows back out "in portions" to bound memory. The TPU
+table and streams rows back out "in portions" to bound memory. The
 rebuild's durable store is a binary columnar directory (u.npy/i.npy/r.npy +
 meta.json) with the same contract: append batches, stream fixed-size
 portions, and hand the full COO to the layout builder. No DB server needed;

@@ -12,6 +12,28 @@ from __future__ import annotations
 import numpy as np
 
 
+def _inverse_cdf(c: np.ndarray, x: np.ndarray):
+    """``np.searchsorted(c, x)`` for a CDF ``c`` (sorted, ``c[-1] == 1``)
+    and draws ``x`` in [0, 1) — the same indices, found through a bucket
+    table instead of one cache-missing binary search per draw.
+
+    With B a power of two, b = floor(x * B) is exact, so the answer lies
+    in [first c >= b/B, first c >= (b+1)/B]; each pass advances the draws
+    still below their CDF entry, and with B ~ 4 len(c) a bucket spans only
+    a few entries."""
+    buckets = 1 << min(22, max(10, (4 * len(c)).bit_length()))
+    edges = np.searchsorted(c, np.arange(buckets + 1) / buckets)
+    b = (x * buckets).astype(np.int64)
+    res = edges[b]
+    hi = edges[b + 1]
+    act = np.flatnonzero(res < hi)
+    while act.size:
+        act = act[c[res[act]] < x[act]]
+        res[act] += 1
+        act = act[res[act] < hi[act]]
+    return res
+
+
 def synthetic_ratings(
     n_users: int,
     n_items: int,
@@ -39,8 +61,8 @@ def synthetic_ratings(
         c = np.cumsum(p)
         return c / c[-1]
 
-    # inverse-CDF sampling (cumsum once + searchsorted per draw) is ~4x
-    # faster than Generator.choice(p=...) at the 10^7-sample scale the
+    # inverse-CDF sampling (cumsum once + a bucketed search per draw) is
+    # far faster than Generator.choice(p=...) at the 10^7-sample scale the
     # ML-20M/Netflix benches need
     cu = zipf_cdf(n_users)
     ci = zipf_cdf(n_items)
@@ -56,8 +78,8 @@ def synthetic_ratings(
         if short <= 0:
             break
         m = int(short * oversample) + 16
-        uu = np.searchsorted(cu, rng.random(m)).astype(np.int64)
-        ii = np.searchsorted(ci, rng.random(m)).astype(np.int64)
+        uu = _inverse_cdf(cu, rng.random(m))
+        ii = _inverse_cdf(ci, rng.random(m))
         new = np.unique(uu * n_items + ii)
         if len(seen):
             pos = np.searchsorted(seen, new)
@@ -129,7 +151,7 @@ def synthetic_ratings_calibrated(
 ):
     """Planted-model ratings calibrated to published ML-20M marginals.
 
-    Differences vs ``synthetic_ratings`` (VERDICT round 2 item 9):
+    Differences vs ``synthetic_ratings``:
 
     - **Rating histogram**: raw planted scores are QUANTILE-MAPPED onto
       ``rating_hist`` (default ``ML20M_RATING_HIST``), so the value

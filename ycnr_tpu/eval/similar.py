@@ -3,9 +3,8 @@
 Extension of the serving layer (SURVEY.md C13 is user top-N; the factor
 matrix the reference keeps in shm supports the item-side query for free):
 "more like this" = top-n items by cosine (or dot) similarity of V rows.
-Runs as one [B, k] x [k, n_items] MXU matmul per request batch — the same
-shape as the user scorer, so the 1-chip throughput numbers in BASELINE.md
-carry over.
+Runs as one [B, k] x [k, n_items] matmul per request batch — the same
+shape as the user scorer.
 
 Cold items (zero factor rows — never rated, or the trailing trash row) are
 masked out of both sides: they carry no signal, and a zero row's cosine is

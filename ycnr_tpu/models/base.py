@@ -159,12 +159,14 @@ def unpad(state: MFState):
 
 
 def predict(state: MFState, user_idx, item_idx):
-    """r_hat = mu + b_u + b_i + p_u . q_i on device (Appendix A)."""
+    """r_hat = mu + b_u + b_i + p_u . q_i on device (Appendix A). The dot
+    runs at HIGHEST precision, so a GPU does not round it through TF32."""
     return (state.mu + state.bu[user_idx] + state.bi[item_idx]
-            + jnp.einsum("nk,nk->n", state.U[user_idx], state.V[item_idx]))
+            + jnp.einsum("nk,nk->n", state.U[user_idx], state.V[item_idx],
+                         precision=jax.lax.Precision.HIGHEST))
 
 
-_RMSE_CHUNK = 1 << 21  # 2M rows: bounds gathered-factor HBM to ~1.5 GB
+_RMSE_CHUNK = 1 << 21  # 2M rows: bounds the gathered factor rows to ~1.5 GB
 
 
 def rmse_padded(state: MFState, pu, pi, pr, n_real):
@@ -174,7 +176,7 @@ def rmse_padded(state: MFState, pu, pi, pr, n_real):
     prediction there is mu, so padding is masked explicitly. Large COOs are
     processed in a chunked scan: unchunked, the two [nnz, k] factor gathers
     plus their product peak at ~3 * nnz * k * 4 bytes — 15 GB at ML-20M
-    train-RMSE scale, an HBM OOM on a 16 GB chip.
+    train-RMSE scale.
     """
     def sq_sum(u, i, r):
         err = r - predict(state, u, i)

@@ -8,7 +8,7 @@ models/sgd.py: per batch, gradients are computed at batch-start parameters
 and scatter-added (duplicates accumulate — `np.add.at` semantics, matching
 oracle/numpy_mf.bpr_epoch_batched exactly).
 
-TPU-idiomatic negative sampling: per epoch, one uniformly-drawn negative
+Device-side negative sampling: per epoch, one uniformly-drawn negative
 item per observed (user, item) positive — drawn ON DEVICE with
 `jax.random`, validated against a packed rated-bits table ([n_users+1,
 ceil(n_items/32)] uint32, the same bitfield trick as the serving mask,
@@ -73,8 +73,8 @@ def expected_weights(train_u, train_i, batch_size: int, n_users: int,
                                  + B / n_items      (as a uniform negative)
 
     Deterministic and precomputable (unlike "mean"'s realized counts, which
-    cost ~6 extra random per-row ops per triple on device — same-session
-    2.39 vs 1.57 s/epoch at ML-20M, docs/KERNELS.md). Trash rows weigh 0."""
+    cost ~6 extra random per-row ops per triple on device). Trash rows
+    weigh 0."""
     nnz = max(len(np.asarray(train_u)), 1)
     # a batch holds at most min(B, nnz) REAL rows (smaller datasets fit in
     # one padded batch), so the expectation uses the effective batch size —
@@ -143,8 +143,7 @@ def fuse_bpr_state(U, V, bi, wu, wi, grad_mode: str = "emean"):
     b_i update (the stream-SGD trick). For grad_mode="emean" a second
     extra column carries the per-row expected-multiplicity weights ALONG
     WITH the factor gathers, so the weighting costs zero extra per-row
-    ops (vs "mean"'s realized counts — measured 2.39 vs 1.68 s/epoch at
-    ML-20M, docs/KERNELS.md); sum/mean modes skip it (no bandwidth for a
+    ops (vs "mean"'s realized counts); sum/mean modes skip it (no bandwidth for a
     column they never read — grad_mode is static at trace time)."""
     _check_grad_mode(grad_mode)
     dt = U.dtype
@@ -211,7 +210,7 @@ def bpr_batch_deltas(Uf, Vf, bits, ub, ib, jb, pad_row, lam, lr,
     Vi = Vf[ib]
     Vj = Vf[jb]
     # the dot runs over factor+bias columns only (slices, not a masked
-    # 3-operand einsum — measured faster on the VPU)
+    # 3-operand einsum)
     x = jnp.einsum("nk,nk->n", Uu[:, :k + 1],
                    Vi[:, :k + 1] - Vj[:, :k + 1])
     s = m * jax.nn.sigmoid(-x)
@@ -294,9 +293,7 @@ def bpr_epoch_batches(state: MFState, data: BPRData, border: jnp.ndarray,
     shuffle_rows_seed) and only the batch ORDER reshuffles per epoch,
     while negatives stay fresh per epoch. Kills the per-epoch full-row
     device permutation AND its two apply-gathers — the rows mode's
-    largest non-update cost (docs/KERNELS.md "BPR epoch perf model"):
-    measured 1.68 -> 1.13 s/epoch at ML-20M, identical hit@10 trajectory
-    (0.099 -> 0.124 over 6 epochs). Same trade as stream-SGD's
+    largest non-update cost, with the same hit@10 trajectory. Same trade as stream-SGD's
     batch-order reshuffle; fresh negative draws keep per-epoch
     stochasticity. The default (BPRConfig.shuffle).
     """

@@ -2,7 +2,7 @@
 
 The reference runs hogwild SGD: workers race benign writes through shared
 memory (call stack 3.3). Races are neither reproducible nor meaningful on
-TPU; the rebuild uses *deterministic mini-batched SGD*: per batch, gradients
+an accelerator; the rebuild uses *deterministic mini-batched SGD*: per batch, gradients
 are computed at batch-start parameters and scatter-added (duplicate
 users/items within a batch accumulate, matching `np.add.at` semantics — the
 oracle implements exactly this, so parity is exact). Same seed => bitwise

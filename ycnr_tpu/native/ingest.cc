@@ -3,7 +3,7 @@
 // The reference engine leans on node-gyp C++ addons for everything hot on
 // the host side (SURVEY.md C6a/C6b/C6c: nblas-plus, nlapack,
 // shm-typed-array) and streams MovieLens rows through PostgreSQL (C7).
-// On the TPU rebuild the device math is XLA/Pallas; what remains host-hot is
+// In the rebuild the device math is XLA's; what remains host-hot is
 // ingestion: parsing tens of millions of rating rows and packing the
 // chunked layout. This library provides those as a C ABI for ctypes:
 //
@@ -118,9 +118,8 @@ static inline float ycnr_parse_float(char** pp, char* end, bool* ok) {
 //
 // Streams through a fixed 4 MB buffer (partial trailing line carried across
 // reads) instead of slurping the file: a whole-file vector means hundreds of
-// MB of fresh first-touch pages before parsing starts, which on ballooned
-// VMs (docs/KERNELS.md "host-side build notes") costs far more than the
-// parse itself.
+// MB of fresh first-touch pages before parsing starts, which on VMs with
+// slow page faults costs far more than the parse itself.
 // Core loop shared by the with/without-timestamp entry points: `ts` may be
 // null (skip the 4th column) or an int64 output array (parse it; a missing
 // or malformed 4th field stores 0 but keeps the row — some exports drop the

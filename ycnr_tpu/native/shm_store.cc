@@ -2,8 +2,8 @@
 //
 // The reference engine shares U/V factor matrices between its master and
 // worker processes through a SysV shared-memory C++ addon (SURVEY.md C6c:
-// shm.create/get/detach over shmget/shmat). On the TPU rebuild the TRAINING
-// side of that role is HBM shardings; what remains genuinely cross-process
+// shm.create/get/detach over shmget/shmat). In the rebuild the TRAINING
+// side of that role is device-array shardings; what remains genuinely cross-process
 // on the host is SERVING: several serving processes reading one copy of the
 // trained factors while a trainer republishes them between epochs.
 //

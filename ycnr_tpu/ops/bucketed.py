@@ -1,16 +1,16 @@
 """Bucketed slot-major layout: the segsum-free fast path for ALS/iALS.
 
-Motivation (measured on TPU v5e, see bench notes in git history): XLA's
-scatter-add `segment_sum` over per-chunk Gram tensors ([C_B, k, k]) is
-pathologically slow on TPU, while everything else in the solve is matmuls.
-This layout removes the segment reduction entirely:
+Motivation: XLA's scatter-add `segment_sum` over per-chunk Gram tensors
+([C_B, k, k]) was pathologically slow on the accelerator this code was
+first written for, while everything else in the solve is matmuls. This
+layout removes the segment reduction entirely:
 
 * entities are grouped by a row-count rung ladder ({8, 12, 16, 24, ...});
   inside a group every entity owns exactly R rating slots (its rung), so
-  the per-entity Gram is a single batched MXU einsum `urk,urm->ukm` over
+  the per-entity Gram is a single batched einsum `urk,urm->ukm` over
   the R axis — no chunk_seg, no scatter-add;
 * groups are split into fixed-size blocks ([NB, NE_b, R]) and scanned, the
-  same streaming structure as BlockedCSR (bounded HBM for the gathered
+  same streaming structure as BlockedCSR (bounded memory for the gathered
   rows);
 * the zero-row padding trick is identical: padding slots gather the all-zero
   trailing row of the other factor and contribute nothing.
@@ -27,6 +27,8 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import numpy as np
+
+from ycnr_tpu.ops.layout import entity_major_order
 
 
 class BucketGroup(NamedTuple):
@@ -105,12 +107,11 @@ def bucketed_geometry(counts: np.ndarray, rank_hint: int = 64,
     """[(R, nb, ne_b)] per group — the exact block shapes build_bucketed
     will produce for a dataset with these per-entity rating counts.
 
-    Split out so the first-epoch wall can be attacked (docs/KERNELS.md):
-    counts come from one bincount over the COO (seconds), which means the
-    epoch program's full argument SHAPES are known minutes before the
-    layout contents are packed — train/loop.py warms the compile + remote
-    program upload on zero-filled arrays of these shapes concurrently
-    with the host-side pack. MUST stay in lockstep with build_bucketed
+    Split out so the epoch program can compile early: counts come from one
+    bincount over the COO (seconds), which means the epoch program's full
+    argument SHAPES are known before the layout contents are packed —
+    train/loop.py compiles it on zero-filled arrays of these shapes
+    concurrently with the host-side pack. MUST stay in lockstep with build_bucketed
     (which calls it; tests/test_bucketed.py pins shape agreement).
     """
     counts = np.asarray(counts, np.int64)
@@ -160,7 +161,7 @@ def build_bucketed(
 
     # sort by (entity, other): within-entity item order is ascending, which
     # improves DRAM locality of the device gather at zero build cost
-    order = np.lexsort((o_all, entity_idx))
+    order = entity_major_order(entity_idx, o_all)
     o_sorted = np.ascontiguousarray(o_all[order], np.int32)
     r_sorted = np.ascontiguousarray(r_all[order], np.float32)
     counts = np.bincount(entity_idx, minlength=n_entities).astype(np.int64)
@@ -170,9 +171,9 @@ def build_bucketed(
     active = np.nonzero(counts)[0]
     # Choose at most max_groups rung heights by exact DP over candidate
     # heights (quantiles of the distinct rating counts, rounded up to the
-    # 8-row fp32 sublane): minimize total padded slots subject to the
-    # group budget (every rung is one compiled program shape; each jit
-    # costs seconds through a remote compile helper). Replaces a greedy
+    # multiple of 8): minimize total padded slots subject to the group
+    # budget (every rung is one compiled program shape, and each costs
+    # compile time). Replaces a greedy
     # pow2-ladder merge measured 3-4 points of fill worse at ML-20M
     # (0.60 -> 0.64 at 8 groups, 0.78 -> 0.81 at 16).
     rung = _dp_rungs(counts[active], max_groups)

@@ -6,9 +6,9 @@ reference runs per-user in JS with nblas/nlapack C++ BLAS (C6a/C6b). Here the
 whole phase is one XLA program per block:
 
     gather rows of the other factor        (HBM bandwidth-bound)
-    chunk Grams via batched MXU einsum     [C_B, L, k] -> [C_B, k, k]
+    chunk Grams via batched einsum         [C_B, L, k] -> [C_B, k, k]
     segment_sum chunk->entity slot         (entities may own many chunks)
-    guarded batched Cholesky solve         [C_B, k, k] (XLA LAPACK equivalent)
+    guarded batched SPD solve              [C_B, k, k] (CUDA kernel or XLA)
     scatter solved rows into the factor
 
 Padding needs no masks anywhere: padding gathers the all-zero row (layout.py's
@@ -18,6 +18,7 @@ solve the guarded identity system to exactly 0, keeping the trash row zero.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import jax
@@ -71,36 +72,81 @@ def segment_reduce_block(G: jnp.ndarray, b: jnp.ndarray,
     return A, r
 
 
+_OVERRIDE: Optional[str] = None
+# Largest rank at which "auto" takes the CUDA kernel. Measured on an H100
+# (B = 138,493 systems; ML-20M ALS epoch): the kernel is faster at k = 10
+# and 64 and slower than XLA at k = 128 (see PERF.md, "Bring-up on H100").
+AUTO_CUDA_MAX_RANK = 64
+
+
+def solve_method(dtype, k: int, method: str = "auto",
+                 backend: Optional[str] = None) -> str:
+    """Which batched solve runs: "cuda" (ops/cuda_solve.py, one kernel with
+    the system in shared memory) or "xla" (lax.linalg cholesky + two
+    triangular solves).
+
+    "auto" takes the kernel for float32 systems of rank <=
+    AUTO_CUDA_MAX_RANK on the GPU backend and XLA everywhere else
+    (float64 parity runs, the CPU, larger ranks); inside
+    ``solve_override`` it takes the overriding method. Asking for "cuda"
+    where the kernel cannot run (not float32 on the GPU, or rank above
+    cuda_solve.MAX_RANK) is an error, not a fallback."""
+    from ycnr_tpu.ops.cuda_solve import MAX_RANK
+
+    if method not in ("auto", "xla", "cuda"):
+        raise ValueError(f"unknown solve method {method!r}")
+    backend = backend or jax.default_backend()
+    fits = (backend == "gpu" and jnp.dtype(dtype) == jnp.float32
+            and k <= MAX_RANK)
+    if method == "auto":
+        method = _OVERRIDE or (
+            "cuda" if fits and k <= AUTO_CUDA_MAX_RANK else "xla")
+    if method == "cuda" and not fits:
+        raise ValueError(
+            f"the CUDA solve needs float32, rank <= {MAX_RANK} and the gpu "
+            f"backend (got {jnp.dtype(dtype).name}, rank {k}, {backend})")
+    return method
+
+
+@contextlib.contextmanager
+def solve_override(method: str):
+    """Make method="auto" solves use ``method`` inside the block — the XLA
+    reference run and the kernel-vs-XLA timings. Jit caches are cleared on
+    entry and exit, since the choice is made while tracing."""
+    global _OVERRIDE
+    if method not in ("xla", "cuda"):
+        raise ValueError(f"unknown solve method {method!r}")
+    prev, _OVERRIDE = _OVERRIDE, method
+    jax.clear_caches()
+    try:
+        yield
+    finally:
+        _OVERRIDE = prev
+        jax.clear_caches()
+
+
 def guarded_batched_solve(A: jnp.ndarray, b: jnp.ndarray, reg: jnp.ndarray,
                           method: str = "auto") -> jnp.ndarray:
     """Solve (A + diag-broadcast reg * I) x = b per batch element
     (the reference's nlapack `gesv`/`potrf`-class per-user solves,
-    SURVEY.md C6b).
+    SURVEY.md C6b). A is symmetrised first, so callers may pass a Gram
+    whose two triangles differ by rounding.
 
     reg: [B] per-entity ridge; callers pass lam*n_e + (n_e==0) so empty
     slots solve I x = 0 -> exactly 0 (SURVEY.md §7 hard part: cold-entity
     singularity guard).
 
-    method: "auto" picks the Pallas batch-vectorized Cholesky kernel on TPU
-    for float32 (XLA's batched small-matrix cholesky/triangular_solve eats
-    ~90% of the ALS phase on v5e, see ops/pallas_solve.py); "xla" forces
-    the lax.linalg path (used for float64 parity runs and CPU tests).
+    method: "auto" | "xla" | "cuda", resolved by ``solve_method``.
     """
     k = A.shape[-1]
+    if solve_method(A.dtype, k, method) == "cuda":
+        from ycnr_tpu.ops.cuda_solve import cuda_spd_solve
+
+        return cuda_spd_solve(A, b, reg)
+
     eye = jnp.eye(k, dtype=A.dtype)
     A = A + reg[:, None, None] * eye
     A = 0.5 * (A + jnp.swapaxes(A, -1, -2))  # enforce symmetry
-
-    if method == "auto":
-        use_pallas = (A.dtype == jnp.float32
-                      and jax.default_backend() == "tpu" and k <= 256)
-    else:
-        use_pallas = method == "pallas"
-    if use_pallas:
-        from ycnr_tpu.ops.pallas_solve import pallas_spd_solve
-
-        return pallas_spd_solve(A, b)
-
     chol = lax.linalg.cholesky(A)
     y = lax.linalg.triangular_solve(chol, b[..., None], left_side=True,
                                     lower=True)

@@ -3,7 +3,8 @@
 This replaces the reference's ingestion boundary (SURVEY.md §1 L1->L5): the
 NodeJS engine streams rating rows out of PostgreSQL in portions and packs them
 into per-user ``(itemIdx[], rating[])`` typed arrays (SURVEY.md C7, call stack
-3.2). On TPU the equivalent is a *static-shape* layout living in HBM:
+3.2). On the device the equivalent is a *static-shape* layout living in
+device memory:
 
 * Each entity's (user's or item's) rating list is split into chunks of fixed
   length ``L`` (``chunk_len``). A mega-entity simply owns several chunks —
@@ -88,6 +89,18 @@ def _auto_block_entities(block_chunks: int, n_active: int,
     return int(-(-ub // 8) * 8)
 
 
+def entity_major_order(entity_idx: np.ndarray,
+                       other_idx: np.ndarray) -> np.ndarray:
+    """``np.lexsort((other_idx, entity_idx))`` for non-negative indices, as
+    one stable argsort of the combined int64 key entity * n + other: the
+    same permutation, about twice as fast at 10^7 ratings."""
+    e = np.asarray(entity_idx, np.int64)
+    o = np.asarray(other_idx, np.int64)
+    if not len(e):
+        return np.zeros(0, np.int64)
+    return np.argsort(e * (int(o.max()) + 1) + o, kind="stable")
+
+
 def build_blocked_csr(
     entity_idx: np.ndarray,
     other_idx: np.ndarray,
@@ -120,7 +133,7 @@ def build_blocked_csr(
 
     # group by (entity, other): ascending item order within each entity
     # improves DRAM locality of the device gather at zero build cost
-    order = np.lexsort((other_idx, entity_idx))
+    order = entity_major_order(entity_idx, other_idx)
     e_sorted = entity_idx[order]
     o_sorted = other_idx[order]
     r_sorted = rating[order]
@@ -260,5 +273,5 @@ def unpack_blocked_csr(layout: BlockedCSR, n_entities: int, n_other: int):
     e = ent[valid].astype(np.int64)
     o = oi[valid].astype(np.int64)
     r = rr[valid]
-    order = np.lexsort((o, e))
+    order = entity_major_order(e, o)
     return e[order], o[order], r[order]

@@ -1,10 +1,9 @@
 """Compact wire format for the stream-SGD layout (the SGD pin tier).
 
 The flat stream (models/sgd_stream.StreamSGDData) costs ~20 B/rating in
-HBM (ul/ib int32 + rb/wu/wi f32) — 2.5x the ALS packed wire's rate, so
-at 1e9 ratings the resident stream alone is ~20 GB, past the chip. This
-module is the SGD analog of ops/packed.py (the tier docs/KERNELS.md
-"OOC x SGD" sized at ~5-9 B/rating but left unbuilt): the same epoch
+device memory (ul/ib int32 + rb/wu/wi f32) — 2.5x the ALS packed wire's
+rate, so at 1e9 ratings the resident stream alone is ~20 GB. This module
+is the SGD analog of ops/packed.py (~5-9 B/rating): the same epoch
 math over a compact encoding whose decode fuses into the batch scan.
 
 Per [NB, B] stream row (vs the flat 20 B):
@@ -290,15 +289,15 @@ def flat_from_compact(comp: CompactStreamSGD, dtype=np.float32):
 
 def sgd_wire_budget(n_users: int, n_items: int, rank: int,
                     hbm_bytes: int | None = None) -> int:
-    """HBM bytes available for pinning the SGD wire on one chip: the
-    15 GB allocatable assumption of models/ooc.auto_wire_budget minus
-    the extended factor tables (double-buffered through donation), the
+    """Device bytes available for pinning the SGD wire on one device:
+    the device's memory limit (models/ooc.device_memory_limit) minus the
+    extended factor tables (double-buffered through donation), the
     scan's per-batch decode temps, streamed chunk buffers, and the same
-    1 GB runtime margin."""
+    1 GB runtime margin as models/ooc.auto_wire_budget."""
     if hbm_bytes is None:
-        from ycnr_tpu.models.ooc import device_hbm_stats
+        from ycnr_tpu.models.ooc import device_memory_limit
 
-        hbm_bytes = device_hbm_stats().get("bytes_limit", 15 * 10**9)
+        hbm_bytes = device_memory_limit()
     k1 = rank + 1
     reserve = (2 * (n_users + n_items + 2) * k1 * 4  # Ue/Ve + donation
                + 65536 * k1 * 4 * 8                  # batch decode temps

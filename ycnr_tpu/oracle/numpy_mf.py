@@ -50,7 +50,7 @@ def sgd_epoch_batched(U, V, bu, bi, mu, user_idx, item_idx, rating,
                       lam, lr, batch_size, perm):
     """One epoch of *batched* biased SGD with an explicit batch order.
 
-    TPU SGD is deterministic mini-batched (SURVEY.md M3): gradients within a
+    Device SGD is deterministic mini-batched (SURVEY.md M3): gradients within a
     batch are computed at batch-start parameters and scatter-added. This
     oracle implements exactly those semantics so parity is bitwise-meaningful
     (matching the reference's hogwild races is neither possible nor
@@ -91,7 +91,7 @@ def bpr_epoch_batched(U, V, bi, pos_u, pos_i, neg_j, lam, lr, batch_size,
                       grad_mode="sum"):
     """One epoch of batched BPR-MF (Rendle et al. 2009) with explicit
     triples (beyond-parity: the reference has no ranking trainer; this
-    oracle anchors the TPU models/bpr.py implementation).
+    oracle anchors the device models/bpr.py implementation).
 
     pos_u/pos_i are a permutation of the full training COO (every observed
     pair appears once per epoch); neg_j holds the uniformly-sampled
@@ -110,7 +110,7 @@ def bpr_epoch_batched(U, V, bi, pos_u, pos_i, neg_j, lam, lr, batch_size,
     appearances across BOTH the positive and negative columns. "emean":
     divided by the EXPECTED multiplicity instead (deterministic weights
     from the training degrees: E[user] = deg_u*B/nnz, E[item] =
-    deg_i*B/nnz + B/n_items, clamped >= 1) — the TPU-fast mode
+    deg_i*B/nnz + B/n_items, clamped >= 1) — the device-fast mode
     (models/bpr.expected_weights; the realized counts cost ~6 extra
     random per-row ops per triple on device).
     """

@@ -318,11 +318,10 @@ def dual_rated_bits(meta: DualMeta) -> np.ndarray:
 
 
 @lru_cache(maxsize=16)
-def _dual_topn_fn(mesh: Mesh, n: int, method: str = "exact"):
+def _dual_topn_fn(mesh: Mesh, n: int):
     """Top-n on the mesh with V sharded: all-gather V into cat space once
     per call, score each shard's local users against it, mask with the
-    cat-space rated bits, exact segment top-k (eval.recommend fast path) or
-    the fused Pallas scorer (ops.pallas_topn) per device."""
+    cat-space rated bits, exact segment top-k (eval.recommend fast path)."""
     lay_spec = BlockedCSR(*(P(AXIS) for _ in BlockedCSR._fields))
 
     def local(U, V, mu, lay_arrays, bits):
@@ -331,20 +330,6 @@ def _dual_topn_fn(mesh: Mesh, n: int, method: str = "exact"):
         V_cat = lax.all_gather(V[0], AXIS, axis=0, tiled=True)
         bi = jnp.zeros(V_cat.shape[0], V_cat.dtype)
         bu = jnp.zeros(U.shape[1], U.dtype)
-        if method != "exact":
-            from ycnr_tpu.ops.pallas_topn import fused_topn_core
-
-            # vma=(AXIS,) stamps the pallas outputs varying-across-mesh so
-            # check_vma stays ON (see shard._topn_fn); the locally-created
-            # zero biases and replicated mu are pcast to match
-            ids, sc = fused_topn_core(
-                U[0], V_cat,
-                lax.pcast(bu, AXIS, to="varying"),
-                lax.pcast(bi, AXIS, to="varying"),
-                lax.pcast(mu, AXIS, to="varying"),
-                lay_arrays.entity_ids[0], bits[0],
-                n, score_bf16=(method != "fused32"), vma=(AXIS,))
-            return ids[None], sc[None]
         Vp, bip = _pad_items(V_cat, bi, bits.shape[-1])
 
         def body(_, xs):
@@ -363,15 +348,12 @@ def _dual_topn_fn(mesh: Mesh, n: int, method: str = "exact"):
 
 
 def dual_recommend_all(mesh: Mesh, st: DualState, data: DualData,
-                       meta: DualMeta, n: int = 10, rated_bits=None,
-                       method: str = "exact"):
+                       meta: DualMeta, n: int = 10, rated_bits=None):
     """Top-N for every rated user ON the mesh in dual (item-sharded) mode.
 
     Returns (user_ids, item_ids [m, n], scores [m, n]) as numpy in GLOBAL
     ids. rated_bits: device-put dual_rated_bits(meta) for repeated serving;
-    built (and left unsharded) automatically when None. method: "fused"/
-    "fused32" run the Pallas fused scorer per device (see
-    eval.recommend.recommend_all); falls back to exact on tiny catalogs.
+    built (and left unsharded) automatically when None.
     """
     if meta.user_layout_host is None:
         # needed below for entity ids even when rated_bits is prebuilt
@@ -379,13 +361,7 @@ def dual_recommend_all(mesh: Mesh, st: DualState, data: DualData,
     if rated_bits is None:
         rated_bits = jax.device_put(dual_rated_bits(meta),
                                     NamedSharding(mesh, P(AXIS)))
-    if method != "exact":
-        from ycnr_tpu.ops.pallas_topn import fused_supported
-
-        # cat space: the scored width is the bitmask width, not n_items
-        if not fused_supported(rated_bits.shape[-1] * 32 - 1, n):
-            method = "exact"
-    ids, sc = _dual_topn_fn(mesh, n, method)(st.U, st.V, st.mu,
+    ids, sc = _dual_topn_fn(mesh, n)(st.U, st.V, st.mu,
                                              data.user_layout, rated_bits)
     from ycnr_tpu.parallel.shard import host_fetch
 

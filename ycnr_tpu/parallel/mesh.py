@@ -48,10 +48,10 @@ def init_distributed(coordinator: str | None = None,
     Call once per host process before any mesh/device use; afterwards
     jax.devices() spans all hosts and make_mesh() lays the 1-D shard axis
     across them, so every training path (shard.py / dual.py) runs unchanged
-    — XLA routes the psum/all_gather segments over ICI within a slice and
-    DCN across hosts. With no arguments, coordinates through the cluster
-    environment (TPU pod metadata / SLURM / env vars), which is the common
-    production path. Returns this host's process index.
+    — XLA routes the psum/all_gather segments over NVLink within a host and
+    the network across hosts. With no arguments, coordinates through the
+    cluster environment (SLURM / env vars), which is the common production
+    path; a bare host needs coordinator, process count and id. Returns this host's process index.
     """
     kw = {}
     if coordinator is not None:

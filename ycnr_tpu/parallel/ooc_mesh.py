@@ -1,7 +1,7 @@
 """Sharded out-of-core training: the OOC wire format over a device mesh.
 
 Mode A (docs/SCALING.md "OOC x mesh") composed with the wire tiers of
-models/ooc.py (docs/KERNELS.md "Out-of-core streaming"):
+models/ooc.py:
 
 * U-step (P1): the GLOBAL user-view wire is sliced into contiguous
   per-shard block runs group by group — blocks hold disjoint consecutive
@@ -14,15 +14,15 @@ models/ooc.py (docs/KERNELS.md "Out-of-core streaming"):
 * V-step (P2): each shard re-encodes ITS ratings as a local ITEM-view
   wire (entity = global item, other = LOCAL user row), accumulates
   partial per-item normal equations from the decode, and the mesh
-  `psum`s them over ICI before one replicated guarded solve — the
+  `psum`s them before one replicated guarded solve — the
   BASELINE.json:5 collective, identical to parallel/shard.py's
   `_gram_psum_phase_local` with the block source swapped from the
   resident layout to the wire decode.
 * P4: SPMD program order; the psum is the epoch barrier.
 
-HBM per chip holds factors + 1/D of the wire (2.6-3x smaller than the
-decoded layout): a v5e-8 raises the full-speed pinned bound from ~1.5-2B
-(one chip, BASELINE.md OOC table) to ~12-16B ratings. Beyond the pin,
+Device memory per card holds factors + 1/D of the wire (2.6-3x smaller
+than the decoded layout), so D cards raise the full-speed pinned bound
+D-fold. Beyond the pin,
 the STREAMED tier re-feeds the wire per epoch with per-process transport:
 `feed_sharded_wire` uploads only the [D]-axis rows each process's local
 devices own (make_array_from_single_device_arrays over addressable

@@ -25,6 +25,8 @@ MFState.
 
 from __future__ import annotations
 
+import os
+
 from dataclasses import dataclass
 from functools import lru_cache, partial
 from typing import NamedTuple
@@ -237,16 +239,28 @@ def build_sharded_data(
         chunks_i = int(np.sum(-(-di // chunk_len))) or 1
         ub_item = max(ub_item, _auto_block_entities(C_B, len(di), chunks_i))
 
-    u_lays, i_lays = [], []
-    for d, pfull in enumerate(per):
+    def user_view(pfull):
         pu = pfull if need_user_layout else pfull[:0]
-        pi = pfull if need_item_layout else pfull[:0]
-        u_lays.append(build_blocked_csr(
+        return build_blocked_csr(
             local_of[train_u[pu]].astype(np.int64), train_i[pu], train_r[pu],
-            upd, n_items, chunk_len, C_B, block_entities=ub_user))
-        i_lays.append(build_blocked_csr(
+            upd, n_items, chunk_len, C_B, block_entities=ub_user)
+
+    def item_view(pfull):
+        pi = pfull if need_item_layout else pfull[:0]
+        return build_blocked_csr(
             train_i[pi], local_of[train_u[pi]].astype(np.int64), train_r[pi],
-            n_items, upd, chunk_len, C_B, block_entities=ub_item))
+            n_items, upd, chunk_len, C_B, block_entities=ub_item)
+
+    # the 2D per-shard builds are independent and spend their time in
+    # NumPy sorts/gathers and the native packer, which release the GIL
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=min(2 * D, os.cpu_count() or 1)) \
+            as pool:
+        u_futs = [pool.submit(user_view, p) for p in per]
+        i_futs = [pool.submit(item_view, p) for p in per]
+        u_lays = [f.result() for f in u_futs]
+        i_lays = [f.result() for f in i_futs]
     nb_u = max(l.n_blocks for l in u_lays)
     nb_i = max(l.n_blocks for l in i_lays)
     u_lays = [_pad_blocks(l, nb_u, upd, n_items) for l in u_lays]
@@ -715,31 +729,12 @@ def sharded_bpr_epoch(mesh: Mesh, st: ShardedState, data: ShardedData,
 
 
 @lru_cache(maxsize=16)
-def _topn_fn(mesh: Mesh, n: int, with_bits: bool, method: str = "exact"):
+def _topn_fn(mesh: Mesh, n: int, with_bits: bool):
     lay_spec = BlockedCSR(*(P(AXIS) for _ in BlockedCSR._fields))
 
     def local(U, bu, V, bi, mu, lay_arrays, bits):
         from ycnr_tpu.eval.recommend import _pad_items, topn_block
         from ycnr_tpu.ops.gram import BlockData as BD
-
-        if with_bits and method != "exact":
-            # fused Pallas scorer per device shard: each device runs the
-            # kernel over its local blocks against the replicated V
-            from ycnr_tpu.ops.pallas_topn import fused_topn_core
-
-            # vma=(AXIS,) stamps the kernel outputs varying-across-mesh so
-            # check_vma stays ON for this path (pallas out_shapes carry no
-            # vma of their own); replicated V/bi/mu are pcast to varying
-            # for the same reason — the kernel body can't mix them
-            ids, sc = fused_topn_core(
-                U[0],
-                lax.pcast(V, AXIS, to="varying"),
-                bu[0],
-                lax.pcast(bi, AXIS, to="varying"),
-                lax.pcast(mu, AXIS, to="varying"),
-                lay_arrays.entity_ids[0], bits[0],
-                n, score_bf16=(method != "fused32"), vma=(AXIS,))
-            return ids[None], sc[None]
 
         if with_bits:  # align scores to the bitmask width (see _topn_blocks)
             V, bi = _pad_items(V, bi, bits.shape[-1])
@@ -764,33 +759,22 @@ def _topn_fn(mesh: Mesh, n: int, with_bits: bool, method: str = "exact"):
 
 
 def sharded_recommend_all(mesh: Mesh, st: ShardedState, data: ShardedData,
-                          meta: ShardedMeta, n: int = 10, rated_bits=None,
-                          method: str = "exact"):
+                          meta: ShardedMeta, n: int = 10, rated_bits=None):
     """Top-N for every rated user, computed ON the mesh: each device scores
     its own user shard against the replicated V and masks with its local
-    layout (BASELINE config 5: 'full top-N serving over 8-chip mesh').
+    layout (BASELINE config 5: 'full top-N serving over the mesh').
 
     rated_bits [D, NB, U_B, W]: packed rated mask from
     ``eval.recommend.build_rated_bits`` applied to the HOST per-shard user
     layout (before device_put), sharded like the layout. Selects the fused
     mask + segment-top-k fast path; None keeps the scatter reference path.
 
-    method: as in ``eval.recommend.recommend_all`` — "fused"/"fused32" run
-    the Pallas fused scorer on every device shard (requires rated_bits and
-    a catalog large enough for the two-level select; falls back to exact
-    otherwise).
-
     Returns (user_ids, item_ids [m, n], scores [m, n]) as numpy in GLOBAL
     user ids.
     """
     with_bits = rated_bits is not None
-    if method != "exact":
-        from ycnr_tpu.ops.pallas_topn import fused_supported
-
-        if not (with_bits and fused_supported(meta.n_items, n)):
-            method = "exact"
     bits_arg = rated_bits if with_bits else jnp.zeros((), jnp.uint32)
-    ids, sc = _topn_fn(mesh, n, with_bits, method)(
+    ids, sc = _topn_fn(mesh, n, with_bits)(
         st.U, st.bu, st.V, st.bi, st.mu, data.user_layout, bits_arg)
     ids = host_fetch(ids)  # [D, NB, U_B, n]
     sc = host_fetch(sc)

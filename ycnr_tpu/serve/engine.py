@@ -40,7 +40,7 @@ class Recommender:
                         else self.train_r[order]), {})
         # fixed mask width = the hottest user's rated count: every request
         # then hits ONE compiled scorer per batch-size bucket instead of
-        # recompiling per width bucket (seconds each on a remote TPU)
+        # recompiling per width bucket (a compile each)
         counts = np.bincount(self.train_u,
                              minlength=1) if len(self.train_u) else [1]
         self._mask_width = int(max(8, np.max(counts)))
@@ -207,13 +207,12 @@ class Recommender:
         return [items[j][scores[j] > NEG_INF / 2]
                 for j in range(len(user_ids))]
 
-    def precompute_all(self, n: int = 10, method: str = "fused") -> int:
+    def precompute_all(self, n: int = 10) -> int:
         """Bulk-fill the recommendation cache for every rated user in one
-        device pass — the reference's precompute-recs-into-Redis pattern
-        (SURVEY.md C8/C13). With the fused Pallas scorer the device pass is
-        0.128 s for all 138k ML-20M users on one v5e chip; per-request
-        serving then reduces to cache hits until the next factor publish
-        (update_state flushes). Returns the number of users cached.
+        device pass of the exact scorer — the reference's precompute-recs-
+        into-Redis pattern (SURVEY.md C8/C13); per-request serving then
+        reduces to cache hits until the next factor publish (update_state
+        flushes). Returns the number of users cached.
 
         Pending online updates are compacted into the base index first so
         the cached lists respect them. A concurrent update_state during the
@@ -229,8 +228,7 @@ class Recommender:
                                 self.state.n_items,
                                 rank_hint=self.state.rank)
         v0 = self._version
-        users, items, scores = recommend_all(self.state, lay, n=n,
-                                             method=method)
+        users, items, scores = recommend_all(self.state, lay, n=n)
         count = 0
         for uid, row, sc in zip(users, items, scores):
             res = row[sc > NEG_INF / 2]

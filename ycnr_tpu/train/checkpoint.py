@@ -69,8 +69,21 @@ def _save_arrays_npz(path: str, state: MFState, epoch: int) -> str:
     return name
 
 
+def orbax_checkpoint():
+    """The orbax.checkpoint module, or a clear error where it is absent
+    (it is optional: the default npz backend needs only NumPy)."""
+    try:
+        import orbax.checkpoint as ocp
+    except ImportError as e:
+        raise RuntimeError(
+            "checkpoint backend 'orbax' needs the orbax-checkpoint "
+            "package, which is not installed; use the default npz "
+            "backend") from e
+    return ocp
+
+
 def _save_arrays_orbax(path: str, state: MFState, epoch: int) -> str:
-    import orbax.checkpoint as ocp
+    ocp = orbax_checkpoint()
 
     name = f"state-{epoch}.orbax"
     target = os.path.join(path, name)
@@ -137,7 +150,7 @@ def save_checkpoint(path: str, state: MFState, epoch: int,
 
 
 def _load_arrays_orbax(path: str, name: str) -> MFState:
-    import orbax.checkpoint as ocp
+    ocp = orbax_checkpoint()
 
     ckptr = ocp.StandardCheckpointer()
     tree = ckptr.restore(os.path.abspath(os.path.join(path, name)))
