@@ -8,9 +8,9 @@ Phases, in order; any failure exits non-zero before the result line:
 
 1. device  JAX must be on the GPU. Prints the devices and, on a line of its
            own, nvidia-smi's name and power limit for the card.
-2. kernel  The batched SPD solve (CUDA kernel and lax.linalg) on B = 138,493
-           ALS-shaped systems at k = 10, 64, 128, checked against float64
-           NumPy on a 4,096-system sample and timed.
+2. kernel  The batched SPD solve (CUDA kernel up to its rank 64, and
+           lax.linalg) on B = 138,493 ALS-shaped systems at k = 10, 64, 128,
+           checked against float64 NumPy on a 4,096-system sample and timed.
 3. main    prepare -> train -> validate -> recommend --all -> serve through
            ``ycnr_tpu.cli.main`` in this process, at the full ML-20M width of
            the ``ml20m-als`` preset (138,493 users x 26,744 items x
@@ -87,24 +87,39 @@ def phase(name):
     return wrap
 
 
+class _EchoLines(io.TextIOBase):
+    """stdout stand-in that keeps every line a command prints and echoes
+    each one, prefixed, as soon as it is complete — so a command cut by a
+    time limit still shows how far it got."""
+
+    def __init__(self, echo):
+        self.lines, self._part, self._echo = [], "", echo
+
+    def write(self, s):
+        *done, self._part = (self._part + s).split("\n")
+        for ln in done:
+            self.lines.append(ln)
+            print(f"  | {ln[:300]}", file=self._echo, flush=True)
+        return len(s)
+
+
 def cli(argv, stdin_text=None):
     """Run ``ycnr_tpu.cli.main(argv)`` in this process; returns its stdout
-    lines (echoed here, prefixed)."""
+    lines (echoed here, prefixed, as they come)."""
     from ycnr_tpu.cli import main
 
-    buf = io.StringIO()
+    out = _EchoLines(sys.stdout)
     old_stdin = sys.stdin
     if stdin_text is not None:
         sys.stdin = io.StringIO(stdin_text)
     try:
-        with contextlib.redirect_stdout(buf):
+        with contextlib.redirect_stdout(out):
             main(argv)
     finally:
         sys.stdin = old_stdin
-    lines = buf.getvalue().splitlines()
-    for ln in lines[-12:]:
-        log(f"  | {ln[:300]}")
-    return lines
+    if out._part:
+        out.write("\n")
+    return out.lines
 
 
 def metrics_of(out_dir, name):
@@ -143,8 +158,7 @@ def phase_kernel():
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     from bench_solve import bench_kernel
 
-    from ycnr_tpu.ops.cuda_solve import build_library
-    from ycnr_tpu.ops.gram import AUTO_CUDA_MAX_RANK
+    from ycnr_tpu.ops.cuda_solve import MAX_RANK, build_library
 
     t0 = time.time()
     log(f"kernel library {build_library()} ({time.time() - t0:.1f}s)")
@@ -153,10 +167,11 @@ def phase_kernel():
         "identity-guard systems must solve to exactly 0")
     rows = bench_kernel(RANKS, reps=10)
     for k, r in rows.items():
-        log(f"solve k={k} B={r['B']}: cuda {r['cuda_ms']:.3f} ms, "
-            f"lax.linalg {r['xla_ms']:.3f} ms (median of 10, "
-            f"block_until_ready); auto takes "
-            f"{'cuda' if k <= AUTO_CUDA_MAX_RANK else 'xla'}")
+        cuda = (f"cuda {r['cuda_ms']:.3f} ms" if k <= MAX_RANK else
+                f"no cuda kernel above rank {MAX_RANK}")
+        log(f"solve k={k} B={r['B']}: {cuda}, lax.linalg {r['xla_ms']:.3f} "
+            f"ms (median of 10, block_until_ready); auto takes "
+            f"{'cuda' if k <= MAX_RANK else 'xla'}")
 
 
 def _train_args(store, out, seed, epochs, *extra):
@@ -232,16 +247,19 @@ def check_recommend_all(store, ckpt, recs_path, seed):
     u, i, _ = RatingsStore(store).read_all()
     state, _ = load_checkpoint(ckpt)
     n_items = state.n_items
-    rated = np.unique(u.astype(np.int64) * n_items + i)
+    # the store's (user, item) pairs are distinct, so a sort gives the
+    # sorted key set (np.unique's hash table is far slower at 2e7 keys)
+    rated = np.sort(u.astype(np.int64) * n_items + i)
+    n_rated_users = int(np.count_nonzero(np.bincount(u)))
     users, lists = [], []
     with open(recs_path) as f:
         for line in f:
             d = json.loads(line)
             users.append(d["user"])
             lists.append(d["items"])
-    if len(users) != len(np.unique(u)):
+    if len(users) != n_rated_users:
         raise AssertionError(f"recommend --all served {len(users)} users, "
-                             f"store has {len(np.unique(u))}")
+                             f"store has {n_rated_users}")
     if any(len(x) != 10 for x in lists):
         raise AssertionError("recommend --all: a list is not 10 long")
     users = np.asarray(users, np.int64)
@@ -355,10 +373,12 @@ def phase_cards(work: str, seed: int, cards: int):
     __graft_entry__.dryrun_multichip(cards)
     log(f"dryrun_multichip({cards}) ok in {time.time() - t0:.1f}s")
     store = os.path.join(work, "store_netflix")
+    t0 = time.time()
     cli(["prepare", "--source", "synthetic", "--store", store,
          "--users", str(NETFLIX["users"]), "--items", str(NETFLIX["items"]),
          "--ratings", str(NETFLIX["ratings"]), "--seed", str(seed),
          "--portion", "10000000"])
+    log(f"prepare: {NETFLIX['ratings']:,} ratings, wall {time.time() - t0:.1f}s")
     runs = {}
     for shards in (cards, 1):
         out = os.path.join(work, f"runs_{shards}")

@@ -8,8 +8,10 @@ import jax
 import jax.numpy as jnp
 
 from ycnr_tpu.ops import cuda_solve
-from ycnr_tpu.ops.gram import (AUTO_CUDA_MAX_RANK, guarded_batched_solve,
-                               solve_method, solve_override)
+from ycnr_tpu.ops.cuda_solve import MAX_RANK
+from ycnr_tpu.ops.gram import guarded_batched_solve, solve_method, solve_override
+
+HOPPER = dict(capability=(9, 0), toolkit=True)
 
 
 def _systems(B, k, seed=0, dtype=np.float32):
@@ -62,40 +64,61 @@ def test_solve_symmetrises_its_input():
     np.testing.assert_allclose(x1, x0, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("backend,dtype,k,want", [
-    ("gpu", jnp.float32, 10, "cuda"),
-    ("gpu", jnp.float32, AUTO_CUDA_MAX_RANK, "cuda"),
-    ("gpu", jnp.float32, AUTO_CUDA_MAX_RANK + 1, "xla"),
-    ("gpu", jnp.float32, 128, "xla"),
-    ("gpu", jnp.float64, 10, "xla"),
-    ("gpu", jnp.bfloat16, 10, "xla"),
-    ("cpu", jnp.float32, 10, "xla"),
+@pytest.mark.parametrize("backend,capability,toolkit,dtype,k,want", [
+    ("gpu", (9, 0), True, jnp.float32, 10, "cuda"),
+    ("gpu", (9, 0), True, jnp.float32, MAX_RANK, "cuda"),
+    ("gpu", (9, 0), True, jnp.float32, MAX_RANK + 1, "xla"),
+    ("gpu", (9, 0), True, jnp.float32, 128, "xla"),
+    ("gpu", (9, 0), True, jnp.float64, 10, "xla"),
+    ("gpu", (9, 0), True, jnp.bfloat16, 10, "xla"),
+    ("gpu", (8, 0), True, jnp.float32, 10, "xla"),
+    ("gpu", (10, 0), True, jnp.float32, 10, "xla"),
+    ("gpu", (9, 0), False, jnp.float32, 10, "xla"),
+    ("cpu", (9, 0), True, jnp.float32, 10, "xla"),
 ])
-def test_auto_dispatch_rule(backend, dtype, k, want):
-    assert solve_method(dtype, k, "auto", backend=backend) == want
+def test_auto_dispatch_rule(backend, capability, toolkit, dtype, k, want):
+    assert solve_method(dtype, k, "auto", backend=backend,
+                        capability=capability, toolkit=toolkit) == want
 
 
-@pytest.mark.parametrize("backend,dtype,k", [
-    ("cpu", jnp.float32, 10),
-    ("gpu", jnp.float64, 10),
-    ("gpu", jnp.float32, cuda_solve.MAX_RANK + 1),
+def test_device_capability_is_none_off_the_gpu():
+    assert cuda_solve.device_capability() is None
+    assert not cuda_solve.runnable(None, True)
+
+
+def test_auto_dispatch_on_this_host_is_xla_without_a_gpu():
+    # the CPU test host: no capability is queried, XLA is the answer
+    assert jax.default_backend() == "cpu"
+    assert solve_method(jnp.float32, 10) == "xla"
+
+
+@pytest.mark.parametrize("backend,capability,toolkit,dtype,k", [
+    ("cpu", (9, 0), True, jnp.float32, 10),
+    ("gpu", (9, 0), True, jnp.float64, 10),
+    ("gpu", (9, 0), True, jnp.float32, MAX_RANK + 1),
+    ("gpu", (8, 9), True, jnp.float32, 10),
+    ("gpu", None, True, jnp.float32, 10),
+    ("gpu", (9, 0), False, jnp.float32, 10),
 ])
-def test_forced_cuda_refuses_where_it_cannot_run(backend, dtype, k):
+def test_forced_cuda_refuses_where_it_cannot_run(backend, capability,
+                                                 toolkit, dtype, k):
     with pytest.raises(ValueError, match="CUDA solve needs"):
-        solve_method(dtype, k, "cuda", backend=backend)
+        solve_method(dtype, k, "cuda", backend=backend,
+                     capability=capability, toolkit=toolkit)
 
 
 def test_forced_cuda_up_to_kernel_max_rank():
-    assert solve_method(jnp.float32, cuda_solve.MAX_RANK, "cuda",
-                        backend="gpu") == "cuda"
+    assert solve_method(jnp.float32, MAX_RANK, "cuda", backend="gpu",
+                        **HOPPER) == "cuda"
 
 
 def test_override_steers_auto_and_restores():
     with solve_override("xla"):
-        assert solve_method(jnp.float32, 10, backend="gpu") == "xla"
+        assert solve_method(jnp.float32, 10, backend="gpu", **HOPPER) == "xla"
         # an explicit method still wins over the override
-        assert solve_method(jnp.float32, 10, "cuda", backend="gpu") == "cuda"
-    assert solve_method(jnp.float32, 10, backend="gpu") == "cuda"
+        assert solve_method(jnp.float32, 10, "cuda", backend="gpu",
+                            **HOPPER) == "cuda"
+    assert solve_method(jnp.float32, 10, backend="gpu", **HOPPER) == "cuda"
     with pytest.raises(ValueError):
         with solve_override("pallas"):
             pass
@@ -117,7 +140,7 @@ def test_library_name_follows_source(monkeypatch, tmp_path):
 # ---- on the card only: `JAX_PLATFORMS=cuda python -m pytest -m gpu` ----
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [10, 64, 128])
+@pytest.mark.parametrize("k", [10, 32, MAX_RANK])
 def test_cuda_kernel_matches_float64(k):
     A, b, reg = _systems(1000, k, seed=k)
     x = np.asarray(jax.jit(lambda *a: guarded_batched_solve(
@@ -136,3 +159,23 @@ def test_cuda_kernel_under_vmap():
                      reg.reshape(4, 16)))
     np.testing.assert_allclose(x.reshape(64, 16), _solve64(A, b, reg),
                                rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [10, MAX_RANK])
+def test_cuda_kernel_matches_float64_ials_systems(k):
+    # iALS shape: alpha-weighted Gram plus a dense base Gram F^T F shared by
+    # every system, constant ridge lam (models/bucketed_phase, parallel/)
+    A, b, _ = _systems(1000, k, seed=k + 1)
+    rng = np.random.default_rng(k)
+    F = rng.normal(0, (3.5 / k) ** 0.5, (4 * k, k))
+    A = (40.0 * A + (F.T @ F)[None]).astype(np.float32)
+    reg = np.full(1000, 0.1, np.float32)
+    x = np.asarray(jax.jit(lambda *a: guarded_batched_solve(
+        *a, method="cuda"))(A, b, reg))
+    ref = _solve64(A, b, reg)
+    scale = np.abs(ref).max(axis=1, keepdims=True) + 1e-30
+    assert (np.abs(x - ref) / scale).max() < 1e-3
+    np.testing.assert_allclose(
+        x, np.asarray(guarded_batched_solve(A, b, reg, "xla")),
+        rtol=1e-3, atol=1e-3 * float(np.abs(ref).max()))

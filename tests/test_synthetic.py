@@ -8,7 +8,7 @@ rating range — are load-bearing for every downstream test and bench.
 import numpy as np
 import pytest
 
-from ycnr_tpu.data.synthetic import synthetic_ratings
+from ycnr_tpu.data.synthetic import _sorted_unique, synthetic_ratings
 
 
 def _keys(u, i, n_items):
@@ -24,6 +24,13 @@ def test_no_duplicates_and_exact_count(power_law):
     # sparse regime (20% density): the adaptive oversampler must hit the
     # requested count exactly
     assert len(r) == 30_000
+
+
+@pytest.mark.parametrize("n,hi", [(0, 1), (1, 5), (1000, 7), (50_000, 1 << 40)],
+                         ids=["empty", "one", "dup-heavy", "sparse"])
+def test_sorted_unique_is_np_unique(n, hi):
+    x = np.random.default_rng(n).integers(0, hi, n, dtype=np.int64)
+    np.testing.assert_array_equal(_sorted_unique(x), np.unique(x))
 
 
 def test_deterministic():

@@ -34,6 +34,20 @@ def _inverse_cdf(c: np.ndarray, x: np.ndarray):
     return res
 
 
+def _sorted_unique(x: np.ndarray) -> np.ndarray:
+    """``np.unique(x)`` for a 1-D array, by one sort and a neighbour
+    compare. NumPy 2.3's ``np.unique`` builds a hash table first: for
+    1.3e8 distinct int64 keys it took 352 s against 2 s for ``np.sort``
+    on the host of an H100 machine (NumPy 2.3.5)."""
+    s = np.sort(x)
+    if len(s) < 2:
+        return s
+    keep = np.empty(len(s), bool)
+    keep[0] = True
+    np.not_equal(s[1:], s[:-1], out=keep[1:])
+    return s[keep]
+
+
 def synthetic_ratings(
     n_users: int,
     n_items: int,
@@ -80,7 +94,7 @@ def synthetic_ratings(
         m = int(short * oversample) + 16
         uu = _inverse_cdf(cu, rng.random(m))
         ii = _inverse_cdf(ci, rng.random(m))
-        new = np.unique(uu * n_items + ii)
+        new = _sorted_unique(uu * n_items + ii)
         if len(seen):
             pos = np.searchsorted(seen, new)
             hit = (pos < len(seen)) & (seen[np.minimum(pos, len(seen) - 1)]

@@ -16,6 +16,7 @@ through ``$CUDA_HOME``, then ``/usr/local/cuda``, then ``$PATH``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -24,7 +25,11 @@ import threading
 
 import jax
 
-MAX_RANK = 128  # the kernel's shared-memory budget (66 KB at k = 128)
+# Largest rank the kernel takes. Measured on an H100 at B = 138,493 systems
+# it beat XLA's Cholesky at k = 10 and 64, in the solve alone and in the
+# ML-20M epoch, and lost at k = 128 (PERF.md, "Bring-up on H100"), so it
+# is built only up to 64.
+MAX_RANK = 64
 TARGET = "ycnr_spd_solve"
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
@@ -34,16 +39,42 @@ _lock = threading.Lock()
 _registered = False
 
 
-def _nvcc() -> str:
+def _find_nvcc() -> str | None:
     for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
         if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
             return os.path.join(root, "bin", "nvcc")
-    found = shutil.which("nvcc")
+    return shutil.which("nvcc")
+
+
+def _nvcc() -> str:
+    found = _find_nvcc()
     if found is None:
         raise RuntimeError(
             "the GPU solve kernel needs the CUDA toolkit's nvcc to build "
-            "(set CUDA_HOME), or run under ops.gram.solve_override('xla')")
+            "(set CUDA_HOME)")
     return found
+
+
+def device_capability() -> tuple[int, int] | None:
+    """(major, minor) compute capability of the first device, or None
+    where it is not a CUDA GPU."""
+    cc = getattr(jax.devices()[0], "compute_capability", None)
+    if not cc:
+        return None
+    major, minor = str(cc).split(".")[:2]
+    return int(major), int(minor)
+
+
+@functools.lru_cache(maxsize=1)
+def toolkit_found() -> bool:
+    """The kernel library is built, or nvcc is there to build it."""
+    return os.path.exists(library_path()) or _find_nvcc() is not None
+
+
+def runnable(capability: tuple[int, int] | None, toolkit: bool) -> bool:
+    """The kernel is built for sm_90a, so it runs on Hopper (compute
+    capability 9.x) only, and only where it is built or can be."""
+    return capability is not None and capability[0] == 9 and toolkit
 
 
 def library_path() -> str:

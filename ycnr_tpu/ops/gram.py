@@ -73,46 +73,53 @@ def segment_reduce_block(G: jnp.ndarray, b: jnp.ndarray,
 
 
 _OVERRIDE: Optional[str] = None
-# Largest rank at which "auto" takes the CUDA kernel. Measured on an H100
-# (B = 138,493 systems; ML-20M ALS epoch): the kernel is faster at k = 10
-# and 64 and slower than XLA at k = 128 (see PERF.md, "Bring-up on H100").
-AUTO_CUDA_MAX_RANK = 64
 
 
 def solve_method(dtype, k: int, method: str = "auto",
-                 backend: Optional[str] = None) -> str:
+                 backend: Optional[str] = None,
+                 capability: Optional[tuple] = None,
+                 toolkit: Optional[bool] = None) -> str:
     """Which batched solve runs: "cuda" (ops/cuda_solve.py, one kernel with
     the system in shared memory) or "xla" (lax.linalg cholesky + two
     triangular solves).
 
     "auto" takes the kernel for float32 systems of rank <=
-    AUTO_CUDA_MAX_RANK on the GPU backend and XLA everywhere else
-    (float64 parity runs, the CPU, larger ranks); inside
-    ``solve_override`` it takes the overriding method. Asking for "cuda"
-    where the kernel cannot run (not float32 on the GPU, or rank above
-    cuda_solve.MAX_RANK) is an error, not a fallback."""
-    from ycnr_tpu.ops.cuda_solve import MAX_RANK
+    cuda_solve.MAX_RANK on a Hopper GPU (compute capability 9.x, the one
+    architecture it is built for) where the kernel is built or nvcc can
+    build it, and XLA everywhere else (float64 parity runs, the CPU, other
+    GPUs, larger ranks, no CUDA toolkit); inside ``solve_override`` it
+    takes the overriding method. Asking for "cuda" where the kernel cannot
+    run is an error, not a fallback. ``backend``, ``capability`` and
+    ``toolkit`` default to what this process finds."""
+    from ycnr_tpu.ops import cuda_solve
 
     if method not in ("auto", "xla", "cuda"):
         raise ValueError(f"unknown solve method {method!r}")
     backend = backend or jax.default_backend()
     fits = (backend == "gpu" and jnp.dtype(dtype) == jnp.float32
-            and k <= MAX_RANK)
+            and k <= cuda_solve.MAX_RANK)
+    if fits:
+        fits = cuda_solve.runnable(
+            cuda_solve.device_capability() if capability is None
+            else capability,
+            cuda_solve.toolkit_found() if toolkit is None else toolkit)
     if method == "auto":
-        method = _OVERRIDE or (
-            "cuda" if fits and k <= AUTO_CUDA_MAX_RANK else "xla")
+        method = _OVERRIDE or ("cuda" if fits else "xla")
     if method == "cuda" and not fits:
         raise ValueError(
-            f"the CUDA solve needs float32, rank <= {MAX_RANK} and the gpu "
-            f"backend (got {jnp.dtype(dtype).name}, rank {k}, {backend})")
+            f"the CUDA solve needs float32, rank <= {cuda_solve.MAX_RANK}, "
+            f"a compute capability 9.x GPU and the CUDA toolkit (got "
+            f"{jnp.dtype(dtype).name}, rank {k}, {backend})")
     return method
 
 
 @contextlib.contextmanager
 def solve_override(method: str):
-    """Make method="auto" solves use ``method`` inside the block — the XLA
-    reference run and the kernel-vs-XLA timings. Jit caches are cleared on
-    entry and exit, since the choice is made while tracing."""
+    """Make method="auto" solves use ``method`` inside the block. Its two
+    callers are chip_smoke.py's XLA reference run and the epoch A/B of
+    tools/bench_solve.py: both compile whole train programs, whose solves
+    take no method argument. Jit caches are cleared on entry and exit,
+    since the choice is made while tracing."""
     global _OVERRIDE
     if method not in ("xla", "cuda"):
         raise ValueError(f"unknown solve method {method!r}")

@@ -5,7 +5,7 @@
 // sym(A) = (A + A^T) / 2, exactly the contract of the XLA path in
 // ops/gram.guarded_batched_solve. One thread block owns one system: the
 // matrix is read from device memory once into shared memory (k * (k + 1)
-// floats, 16.6 KB at k = 64, 66 KB at k = 128), regularised, symmetrised,
+// floats, 16.6 KB at k = 64), regularised, symmetrised,
 // factored and substituted there, and only x is written back.
 //
 // The factorisation is the square-root-free form A = L D L^T, right-looking
@@ -31,7 +31,7 @@ namespace ffi = xla::ffi;
 
 namespace {
 
-constexpr int kMaxRank = 128;
+constexpr int kMaxRank = 64;  // MAX_RANK in cuda_solve.py
 
 // Row stride of the shared-memory matrix: odd, so that walking a column
 // (stride ld) across the 32 lanes of a warp touches 32 distinct banks.
@@ -126,7 +126,7 @@ ffi::Error SpdSolveImpl(cudaStream_t stream, ffi::Buffer<ffi::F32> a,
     return ffi::Error::InvalidArgument("A must be [..., k, k]");
   const int64_t k = dims[dims.size() - 1];
   if (k < 1 || k > kMaxRank)
-    return ffi::Error::InvalidArgument("rank k must be in [1, 128], got " +
+    return ffi::Error::InvalidArgument("rank k must be in [1, 64], got " +
                                        std::to_string(k));
   const int64_t n_sys = static_cast<int64_t>(reg.element_count());
   if (static_cast<int64_t>(a.element_count()) != n_sys * k * k ||
@@ -145,10 +145,8 @@ ffi::Error SpdSolveImpl(cudaStream_t stream, ffi::Buffer<ffi::F32> a,
     err = launch<32>(stream, pa, pb, pr, px, kk, n_sys);
   else if (kk <= 32)
     err = launch<64>(stream, pa, pb, pr, px, kk, n_sys);
-  else if (kk <= 64)
-    err = launch<128>(stream, pa, pb, pr, px, kk, n_sys);
   else
-    err = launch<256>(stream, pa, pb, pr, px, kk, n_sys);
+    err = launch<128>(stream, pa, pb, pr, px, kk, n_sys);
   if (err != cudaSuccess)
     return ffi::Error::Internal(std::string("spd_solve launch: ") +
                                 cudaGetErrorString(err));

@@ -4,7 +4,7 @@ The second V-step strategy of SURVEY.md M6 ("item_sharded"): instead of
 keeping ratings user-sharded and psum-ing per-item Gram matrices
 ([n_items, k, k] — 0.44 GB at ML-20M rank 64), shard the item axis too and
 re-bucket each shard's ratings by item. Per epoch the mesh then moves only
-two factor all-gathers (U: ~35 MB, V: ~7 MB at ML-20M) over ICI, and the
+two factor all-gathers (U: ~35 MB, V: ~7 MB at ML-20M) over NVLink, and the
 item solves are sharded instead of replicated.
 
 Index convention ("cat space"): with D shards and per-shard padded sizes

@@ -3,7 +3,7 @@
 The reference's control plane is Node `cluster` fork + IPC messages; its data
 plane is SysV shared memory (C4/C6c). Both collapse into the single-controller
 JAX runtime: a 1-D mesh over however many chips are visible, shardings for the
-data plane, XLA collectives (psum over ICI) for the reductions the reference
+data plane, XLA collectives (psum over NVLink) for the reductions the reference
 did via in-place shm writes + epoch barriers.
 """
 
@@ -42,8 +42,8 @@ def init_distributed(coordinator: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None) -> int:
     """Join a multi-host job (the reference's hypothetical TCP multi-machine
-    mode, SURVEY.md C4 [K-low]; here it is first-class: DCN between hosts,
-    ICI within each slice).
+    mode, SURVEY.md C4 [K-low]; here it is first-class: the network between hosts,
+    NVLink within each host).
 
     Call once per host process before any mesh/device use; afterwards
     jax.devices() spans all hosts and make_mesh() lays the 1-D shard axis

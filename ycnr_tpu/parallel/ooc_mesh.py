@@ -354,7 +354,7 @@ def _v_phase_local(U_local, item_deg, base_gram, *wire, Rs, n_items,
                    upd, lam, alpha, gather_bf16, dtype):
     """Per-device V-step: decode local ITEM-view blocks (others = local
     user rows), accumulate partial per-item normal equations, psum over
-    ICI [BASELINE.json:5], one replicated guarded solve."""
+    NVLink [BASELINE.json:5], one replicated guarded solve."""
     Ul = U_local[0]
     k = Ul.shape[-1]
     F_g = Ul.astype(jnp.bfloat16) if gather_bf16 else Ul
@@ -378,7 +378,7 @@ def _v_phase_local(U_local, item_deg, base_gram, *wire, Rs, n_items,
 
         carry, _ = lax.scan(body, carry, (lo, hp, hv, rat, cnt, eid))
     A, b = carry
-    A = lax.psum(A, AXIS)  # item-Gram all-reduce over ICI [BASELINE.json:5]
+    A = lax.psum(A, AXIS)  # item-Gram all-reduce over NVLink [BASELINE.json:5]
     b = lax.psum(b, AXIS)
     item_deg = item_deg.astype(dtype)
     if alpha is None:

@@ -8,9 +8,8 @@ Mapping (SURVEY.md §2 parallelism inventory):
   [a, b) reading shared V", minus the shared memory.
 * P2 (V-step): ratings stay sharded by *user*; each device accumulates
   partial per-item Gram matrices + RHS from its rating shard and the mesh
-  `psum`s them over ICI before one replicated batched solve. This is the
-  BASELINE.json:5-prescribed collective ("allreduces item Gram matrices over
-  ICI") and avoids re-bucketing ratings by item across the mesh (SURVEY.md M6).
+  `psum`s them over NVLink before one replicated batched solve. This is the
+  BASELINE.json:5-prescribed collective ("allreduces item Gram matrices") and avoids re-bucketing ratings by item across the mesh (SURVEY.md M6).
 * P3 (SGD data parallelism): each device runs the rating stream of its user
   shard; U/b_u updates are purely local, V/b_i deltas are `psum`'d per batch
   — the deterministic analog of the reference's hogwild shm races.
@@ -369,7 +368,7 @@ def host_fetch(x) -> np.ndarray:
 
     In a multi-process job a P(AXIS)-sharded array is not fully addressable
     from any one process, so np.asarray raises; replicate it first through a
-    jitted identity (XLA inserts the all-gather over ICI/DCN). Every process
+    jitted identity (XLA inserts the all-gather between devices and hosts). Every process
     must call this at the same point — it is a collective there.
     """
     if hasattr(x, "is_fully_addressable") and not x.is_fully_addressable:
@@ -416,7 +415,7 @@ def _gram_psum_phase_local(F_local, layout: BlockedCSR, entity_deg, *,
                            lam: float, n_entities: int,
                            alpha=None, base_gram=None, gather_bf16=False):
     """Per-device: accumulate partial per-entity Grams/RHS from the local
-    rating shard, psum over ICI, then one replicated batched solve.
+    rating shard, psum over NVLink, then one replicated batched solve.
 
     This is the SURVEY.md M6 / BASELINE.json:5 V-step: ratings sharded by
     user, per-item Gram matrices all-reduced over the interconnect.
@@ -448,7 +447,7 @@ def _gram_psum_phase_local(F_local, layout: BlockedCSR, entity_deg, *,
                 b.at[blk.entity_ids].add(bs)), None
 
     (A, b), _ = lax.scan(body, (A0, b0), tuple(x[0] for x in layout))
-    A = lax.psum(A, AXIS)  # item Gram all-reduce over ICI [BASELINE.json:5]
+    A = lax.psum(A, AXIS)  # item Gram all-reduce over NVLink [BASELINE.json:5]
     b = lax.psum(b, AXIS)
     if alpha is None:
         reg = lam * entity_deg + (entity_deg == 0)
